@@ -1,16 +1,18 @@
-"""On-chip probe of the wave-emission internals at 256^3 tier-0 shapes.
+"""Device probe of the wave-emission internals at 256^3 tier-0 shapes.
 
 Each candidate consumes the loop-perturbed input so nothing hoists
-(runtime/device_bench.py synchronization rules).  Run on the TPU:
+(runtime/device_bench.py synchronization rules).  Run on the accelerator
+from the repository root:
     python examples/emit_probe.py
 """
+import os
 import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from sperr_tpu.runtime.device_bench import time_stage  # noqa: E402
 from sperr_tpu.ops import packemit as pe  # noqa: E402
 

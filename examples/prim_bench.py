@@ -1,25 +1,26 @@
-"""Primitive-cost measurements for the round-4 entropy-stage redesign.
+"""Primitive-cost measurements behind the entropy-stage design.
 
-Measures, on the real chip, the candidate building blocks for a
-prefix-sum / blocked-compaction entropy stage (VERDICT r3 task #1):
+Measures, on the accelerator, the building blocks of the prefix-sum /
+blocked-compaction entropy stage:
 
   * flat sort vs BATCHED small sorts (does XLA amortize log^2(K)?)
   * within-block cumsum along the minor axis
   * popcount + PEXT-style bit compaction (pure elementwise u32)
   * output-scale gather (the final assembly movement)
   * small scatter-max + cummax (block->output forward fill)
-  * MXU one-hot select matmul (blocked compaction by matmul)
+  * one-hot select matmul (blocked compaction by matmul)
 
-Run: python examples/prim_bench.py [n_log2]
+Run from the repository root: python examples/prim_bench.py [n_log2]
 """
 import json
+import os
 import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from sperr_tpu.runtime.device_bench import time_stage  # noqa: E402
 
 
@@ -100,7 +101,7 @@ def main():
     t("cummax_1M", lambda v: jax.lax.cummax(v, axis=0), y1m)
     t("cummax_16M", lambda v: jax.lax.cummax(v, axis=0), x_i32)
 
-    # 7. MXU one-hot select matmul: [B, K] @ per-block one-hot [B, K, K]
+    # 7. one-hot select matmul: [B, K] @ per-block one-hot [B, K, K]
     K = 256
     B = n // K // 8  # keep the 3D tensor at n/8*K*2 bytes
     vb = x_i32[: B * K].reshape(B, K)

@@ -1,15 +1,17 @@
-"""On-chip cumulative probe of the virtual-forest walk at 256^3 tier-0.
+"""Device cumulative probe of the virtual-forest walk at 256^3 tier-0.
 
 All chains derive node_s/s/signs from the loop-perturbed input so nothing
-is hoistable or constant-folded.  Run: python examples/walk_probe.py
+is hoistable or constant-folded.  Run on the accelerator from the
+repository root: python examples/walk_probe.py
 """
+import os
 import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from sperr_tpu.runtime.device_bench import time_stage, _smooth_field  # noqa: E402
 from sperr_tpu.ops import cdf97_jax as cdfj  # noqa: E402
 from sperr_tpu.ops import speck_jax as sj  # noqa: E402

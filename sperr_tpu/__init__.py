@@ -1,9 +1,10 @@
-"""sperr_tpu: a TPU-native SPERR-capability lossy compressor for scientific data.
+"""sperr_tpu: an accelerator-native SPERR-capability lossy compressor for
+scientific data.
 
 Dense stages (CDF 9/7 wavelets, conditioning, midtread quantization, outlier
-detection) run on TPU via JAX/Pallas, batched over volume chunks and sharded
-across a device mesh; the SPECK bitplane entropy stage runs on the host
-(native C++ engine with a NumPy reference engine).  Streams are
+detection) and the SPECK bitplane entropy stage run on the GPU via JAX/XLA,
+batched over volume chunks and sharded across a device mesh; the host runs
+the native C++ SPECK engine (plus a NumPy reference engine).  Streams are
 byte-compatible with NCAR/SPERR.
 """
 

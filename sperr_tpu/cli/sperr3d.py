@@ -96,7 +96,7 @@ def run(argv=None) -> int:
             # SPERR3D_OMP_C.cpp:132-135).
             wav = getattr(comp, "last_wave_chunks", 0)
             unc = getattr(comp, "last_uncertified_ids", [])
-            print(f"TPU engine: device-entropy chunks = {wav}")
+            print(f"Device engine: device-entropy chunks = {wav}")
             if mode == "pwe":
                 if unc:
                     print(

@@ -8,7 +8,7 @@ Pipeline (SPECK_FLT.cpp:401-606):
 Stream: condi(17B) | SPECK_INT | [outlier SPECK_INT]
 
 The wavelet + quantization stages run on a pluggable dense engine (exact
-NumPy host engine by default; the JAX/TPU engine lives in ops/cdf97_jax.py
+NumPy host engine by default; the JAX device engine lives in ops/cdf97_jax.py
 and is used by the batched chunk pipeline in parallel/).  The SPECK entropy
 stage runs on the host (NumPy reference engine or native C++ engine).
 """

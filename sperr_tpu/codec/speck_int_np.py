@@ -2,7 +2,7 @@
 
 This is the *reference engine* of the framework: a from-scratch NumPy
 implementation of SPECK set-partitioning whose emitted bit sequence is
-byte-identical to NCAR/SPERR streams (see /root/reference/src/SPECK_INT.cpp,
+byte-identical to NCAR/SPERR streams (see the reference's src/SPECK_INT.cpp,
 SPECK{1,2,3}D_INT*.cpp for the normative behavior).  It favors clarity and
 vectorizes the regular passes (LIP walk, refinement); the recursive sorting
 pass stays in Python.  The production path uses the native C++ engine in

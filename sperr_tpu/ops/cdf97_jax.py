@@ -1,12 +1,11 @@
-"""CDF 9/7 wavelet transform — JAX/TPU engine.
+"""CDF 9/7 wavelet transform — JAX device engine.
 
 Same lifting structure as the exact host engine (cdf97_np.py), expressed as
 strided slices + concats *along the transform axis* — no transposes, so each
 level lowers to a short chain of fusable elementwise ops and XLA keeps the
-whole level HBM-bound.  Works on any float dtype; on TPU the effective
-precision is f32 (no IEEE f64 on this hardware), and XLA contracts
-multiply-adds into FMAs, so results agree with the exact host engine to ~1
-ulp per lifting step — the host engine remains the bit-exact parity path.
+whole level HBM-bound.  Works on any float dtype; the device pipeline
+computes in f32, and XLA may contract multiply-adds into FMAs, so results
+agree with the exact host engine to ~1 ulp per lifting step — the host engine remains the bit-exact parity path.
 
 All entry points operate on the trailing axes and broadcast over leading
 batch axes: a batch of equal chunks is one fused program, and sharding the
@@ -183,7 +182,7 @@ def _set_corner2(x, sub, lx: int, ly: int):
     # dynamic_update_slice instead of slice+concat: XLA performs the
     # corner write in place when the operand buffer is otherwise dead,
     # where the concat form re-materialized the FULL array once per level
-    # (~0.34 GB of pure copy per 256^3 dwt3d; docs/PALLAS.md roofline)
+    # (about one extra 256^3 volume of pure copy per level)
     import jax as _jax
 
     return _jax.lax.dynamic_update_slice(x, sub, (0,) * x.ndim)

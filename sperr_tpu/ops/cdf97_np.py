@@ -5,7 +5,7 @@ reference (CDF97.cpp:598-666).  Each lifting step is elementwise-parallel, so
 the whole transform is expressed as batched vector ops along the last axis;
 results are bit-identical to the reference compiled with -ffp-contract=off.
 
-The JAX/TPU engine (cdf97_jax.py) reuses the same step structure.
+The JAX device engine (cdf97_jax.py) reuses the same step structure.
 """
 
 from __future__ import annotations

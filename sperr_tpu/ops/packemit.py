@@ -2,9 +2,8 @@
 
 The round-3 entropy stage emitted SPECK bits by materializing event lists
 (one i32 per bit) and sorting them into stream order — cap-sized sorts,
-scatters and expansions that ran the 256^3 stage at 3.5 s/chunk
-(VERDICT r3 #1).  This module replaces that machinery with a packed-word
-pipeline whose only data-dependent movements are ONE multi-operand flat
+scatters and expansions that dominated the 256^3 stage.  This module
+replaces that machinery with a packed-word pipeline whose only data-dependent movements are ONE multi-operand flat
 sort at the non-empty-piece scale and ONE piece-sized scatter-add;
 everything else is elementwise:
 
@@ -14,11 +13,11 @@ everything else is elementwise:
      within-pass emission order of SPECK is ascending position
      (reference SPECK_INT.cpp:111-163), so row-major order IS stream
      order and no sort is ever needed for ordering.
-  2. Rows pack 32 cells/word through MXU matmuls against constant
+  2. Rows pack 32 cells/word through bf16 matmuls against constant
      selector weights (halfword values, exact in the f32 accumulator);
      each word's valid bits compact in-register with a PEXT
-     (sheep-and-goats) emulation — ~60 elementwise u32 ops, measured
-     free on TPU (examples/prim_bench.py).
+     (sheep-and-goats) emulation — ~60 elementwise u32 ops, no data
+     movement (examples/prim_bench.py measures it).
   3. Per-word popcounts turn into global bit offsets with one blocked
      cumsum; byte-aligned per-row bases fold in via equal-length-row
      reshapes (both gather-free).
@@ -29,9 +28,10 @@ everything else is elementwise:
      its piece_words+1 aligned words; contributions to shared boundary
      words are bit-disjoint, so add == or.
 
-LAYOUT RULE (learned the hard way — a [1, 34, n, 2] u8 intermediate laid
-out T(8,128)(4,1) inflates 64x and OOMs at 256^3): every array in this
-pipeline is either flat 1-D or has a LARGE minor dimension.  Pieces live
+LAYOUT RULE (tiled device layouts pad a small minor dimension — a
+[1, 34, n, 2] u8 intermediate was seen to inflate 64x and run out of memory
+at 256^3; whether the GPU needs the rule is an open measurement): every
+array in this pipeline is either flat 1-D or has a LARGE minor dimension.  Pieces live
 as lists of flat word arrays, never as [N, piece_words]; interleaved
 (decision, sign) cell pairs are produced by stride-2 selector weights in
 the packing matmul, never by a stack/reshape.
@@ -102,7 +102,7 @@ def transpose_bits32(x: jnp.ndarray) -> jnp.ndarray:
 def transpose_bits32_pair(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Transpose of the INTERLEAVED virtual cell array v[2i] = a[i],
     v[2i+1] = b[i] — without ever materializing it (a [M, 2]-minor
-    relayout inflates 64x on TPU; see the module layout rule).
+    relayout breaks the module layout rule).
 
     ``a``, ``b``: u32[M] (M % 16 == 0) per-item pass masks for the even
     (e.g. decision) and odd (e.g. sign) cell lanes.  Returns
@@ -288,8 +288,8 @@ def cells_to_words(cells_u8: jnp.ndarray) -> jnp.ndarray:
 
 def blocked_cumsum_excl(x: jnp.ndarray, block: int = 256) -> jnp.ndarray:
     """Exclusive cumsum of a flat i32 vector via within-block minor-axis
-    cumsums + a tiny block-sum cumsum (~7x a flat cumsum at multi-M
-    scale; examples/prim_bench.py)."""
+    cumsums + a tiny block-sum cumsum (examples/prim_bench.py compares
+    it with a flat cumsum)."""
     n = x.shape[0]
     nb = -(-n // block)
     pad = nb * block - n
@@ -309,8 +309,8 @@ def compact_flags_rows(
 
     ``flags``: bool[B, n] (n % block == 0).  Returns (idx i32[B, take]
     with sentinel n at unused slots, count i32[B]).  One batched
-    [B*n/block, block] sort (the fast sort shape on TPU) + take-scale
-    gathers replace a flat n-scale sort — ~20x cheaper when take << n.
+    [B*n/block, block] sort (short sorted rows) + take-scale
+    gathers replace a flat n-scale sort — far less work when take << n.
     Rows whose count exceeds ``take`` return the first ``take`` indices
     (callers check count for overflow).
     """
@@ -498,8 +498,7 @@ def masked_pack(
     # Two forms, chosen statically by occupancy regime:
     #   * sparse caps (take << padded piece count — the smooth production
     #     tiers): two-level index compaction + payload gathers; cost
-    #     scales with the CAP (~55K pieces -> ~6 ms at 256^3), not the
-    #     padded count;
+    #     scales with the CAP, not the padded count;
     #   * dense caps (the widest/noisy tiers, take ~ Np): ONE fused flat
     #     sort carrying the piece payload — per-element sorting beats
     #     take-scale gathers once most pieces are live.

@@ -1,4 +1,4 @@
-"""Pyramid-form SPECK partition maxima (TPU-idiomatic, prototype).
+"""Pyramid-form SPECK partition maxima (array-idiomatic, prototype).
 
 The partition tree's boxes at depth d are the outer products of per-axis
 binary interval trees (ceil half first, reference SPECK3D_INT.cpp:214-326).
@@ -13,7 +13,7 @@ at the depth where all three of its axis intervals reach length 1; its
 parent box lives one depth above.
 
 This module is numpy (the algorithmic prototype + parity oracle); the ops
-are all reshape/max/gather-along-axis, which lower cleanly to TPU.  Node
+are all reshape/max/gather-along-axis, which lower cleanly in XLA.  Node
 maxima are returned in the partition tree's BFS order via a static
 permutation so existing consumers (stitch_3d, the host set walk) are
 unchanged.

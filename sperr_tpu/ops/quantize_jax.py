@@ -1,8 +1,8 @@
-"""Quantization + q-estimation on device (JAX/TPU), batched over chunks.
+"""Quantization + q-estimation on device (JAX), batched over chunks.
 
-TPU-mode counterpart of ops/quantize.py.  Arithmetic runs at device precision
-(f32 on TPU); streams remain format-valid SPERR, with quality bounded by the
-device precision rather than bit-identical to the f64 host engine.
+Device counterpart of ops/quantize.py.  Arithmetic runs at the device
+compute dtype (f32); streams remain format-valid SPERR, with quality bounded
+by that precision rather than bit-identical to the f64 host engine.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def estimate_q_psnr_batched(coeffs, data_range, psnr_target: float):
     return q
 
 
-# In TPU (f32) mode, quantized magnitudes must stay exactly representable in
+# In f32 device mode, quantized magnitudes must stay exactly representable in
 # f32, so the rate-mode q targets 2^20-1 instead of the host engine's 2^32-1.
 RATE_MAX_MAG_DEVICE = float(2**20 - 1)
 
@@ -56,23 +56,6 @@ def midtread_quantize_batched(coeffs, q) -> Tuple[jax.Array, jax.Array, jax.Arra
     signs = ll >= 0
     mags = jnp.abs(ll).astype(jnp.int32)
     return mags, signs, jnp.max(mags, axis=1)
-
-
-def midtread_quantize_batched_best(coeffs, q):
-    """Backend-best quantizer: on TPU the Mosaic kernel
-    (ops/pallas_kernels.quantize_pallas) runs the fused
-    rint + |.| + sign + per-chunk max at ~5x the XLA form's throughput
-    (measured 100us vs 556us per 4M f32 on v5e, bit-identical outputs —
-    docs/PALLAS.md); elsewhere the XLA form.  Trace-time dispatch: the
-    backend is known when the enclosing jit traces."""
-    if jax.default_backend() == "tpu" and coeffs.dtype == jnp.float32:
-        try:
-            from .pallas_kernels import quantize_pallas
-
-            return quantize_pallas(coeffs, q)
-        except Exception:  # pragma: no cover - lowering regression fallback
-            pass
-    return midtread_quantize_batched(coeffs, q)
 
 
 def midtread_inv_quantize_batched(mags, signs, q):

@@ -1,6 +1,6 @@
 """Device-side SPECK bitplane kernels (JAX).
 
-TPU-native complement to codec/speck_wave.py: the pixel-level parts of SPECK
+Device complement to codec/speck_wave.py: the pixel-level parts of SPECK
 encoding run as jitted array programs on the device —
 
   * ``pixel_schedule``: per-pixel msb+1 and exposure pass, via segment-max
@@ -86,7 +86,7 @@ def tree_index(dims) -> TreeIndex:
 def msbp1_device(mags: jnp.ndarray) -> jnp.ndarray:
     """msb position + 1 per element (0 for zero); int32 in, int32 out."""
     m = mags.astype(jnp.uint32)
-    # 32 - clz via float exponent is unreliable on TPU; use shifts.
+    # 32 - clz by shifts (exact on every backend, no float exponent).
     out = jnp.zeros_like(m, dtype=jnp.int32)
     for shift in (16, 8, 4, 2, 1):
         big = m >= (jnp.uint32(1) << jnp.uint32(shift))
@@ -190,13 +190,12 @@ def _pack_weight_np():
 def _packbits_device(bits01: jnp.ndarray) -> jnp.ndarray:
     """Pack a 0/1 uint8 vector (length % 8 == 0) LSB-first into bytes.
 
-    One MXU matmul per 1024-bit row: rows of 1024 bits x a constant
+    One bf16 matmul per 1024-bit row: rows of 1024 bits x a constant
     (1024, 128) selector-weight matrix give 128 exact byte values per row
     (bits and power-of-two weights are exact in bf16; 8-term sums <= 255
-    are exact in the f32 accumulator).  The natural ``(-1, 8) @ powers``
-    form tiles its minor dim 8 -> 128 on TPU — a 16x HBM inflation that
-    OOM'd the 256^3 wave path (25.8 GB for a 1.6 GB logical buffer); here
-    every operand keeps a 128-aligned minor dim."""
+    are exact in the f32 accumulator).  Every operand keeps a 128-aligned
+    minor dim instead of the natural ``(-1, 8) @ powers`` form (the
+    packemit layout rule)."""
     nbits = bits01.shape[0]
     rows = -(-nbits // 1024)
     pad = rows * 1024 - nbits
@@ -242,7 +241,7 @@ def events_to_segments(p_key, sec_key, bits, num_bp_cap: int, cap_total: int):
     keep a valid key (the rest sort past the end with the invalid reals).
     The sorted bit vector is then the final segment concatenation by
     construction — position IS the sort rank — eliminating the EV-scale
-    scatter (~0.6 GB/s, the costliest XLA primitive here; docs/PALLAS.md).
+    scatter (the costliest XLA primitive here when this was designed).
     When (pass, pad flag, rank, bit) packs into 31 bits the sort runs as a
     single fused-key operand; otherwise a stable 1/2-key sort carries the
     bit payload.  Per-pass counts come from fused compare+reduce over the
@@ -325,8 +324,8 @@ def _expand_fill(ln, words, ev_cap: int, widths=None):
 
     Returns (filled list of i32[ev_cap], rel i32[ev_cap] = event index
     within its item's block, ev_ok mask, ev_total).  No event-scale
-    gathers anywhere (TPU gathers run at ~0.5 GB/s, the single most
-    expensive XLA primitive in this stage; see docs/PALLAS.md).
+    gathers anywhere (gathers were the most expensive XLA primitive in
+    this stage when it was designed; docs/WAVEFRONT.md section 4).
 
     With `widths` (bit-width per payload word; every value MUST fit its
     declared width), the fill runs as cummax chains: each fill word packs
@@ -335,8 +334,8 @@ def _expand_fill(ln, words, ev_cap: int, widths=None):
     or before j and carries the payload chunk with it.  ceil(total_width /
     pb) cummax passes replace the generic associative scan, which XLA
     expands into a log(ev_cap)-depth slice/concat network (~20 full-array
-    passes); cummax lowers to the same single-pass scan as cumsum
-    (~20 GB/s measured).  Without `widths` (or when ev_cap leaves no
+    passes); cummax lowers to the same single-pass scan as cumsum.
+    Without `widths` (or when ev_cap leaves no
     payload bits) the associative-scan form runs instead."""
     T = ln.shape[0]
     off = jnp.cumsum(ln) - ln
@@ -458,8 +457,7 @@ def events_to_segments_merged(p_keys, bits_list, num_bp_cap: int,
     contract).  The merged bucket key b = p*C + c makes the sorted bit
     vector the full per-pass-per-class segment concatenation in one
     operation — one sort, one pad set, one packbits instead of C of
-    each (the per-class sorts were ~15% of the entropy stage;
-    docs/PALLAS.md).
+    each.
 
     Returns (buf u8[C*cap_total], counts i32[P*C] in bucket order,
     cls_bytes i32[C] — per-class byte totals (the old per-class buffer

@@ -5,9 +5,9 @@ over tree nodes, every LIS bit has a static sort key, so the set-partition
 walk — the last host-side piece of SPECK encoding — becomes per-pass
 ``jnp.lexsort`` + scatter-pack on the device.  Combined with the LIP /
 refinement segments (ops/speck_jax.py), the whole entropy stage runs on
-the TPU; the host only concatenates byte-aligned segments.
+the device; the host only concatenates byte-aligned segments.
 
-Everything is int32 (TPU-native; no x64 requirement): path keys are 24
+Everything is int32 (no x64 requirement): path keys are 24
 five-bit digits packed into four 30-bit words.  Per-chunk work is bounded
 by `node_cap` significant sets (the compressed-information scale); the
 driver falls back to the host stitcher on overflow, exactly like the other
@@ -178,8 +178,7 @@ def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap,
     the round-5 streamlined path behind return_events="items".
 
     Byte-order-identical to the generic walk below; the cost structure is
-    rebuilt around the round-4 measurements (walk = 110 ms of the 222 ms
-    256^3 entropy stage):
+    rebuilt around the walk's gather and sort costs:
       * child values arrive as [C] ROW gathers from an 8-aligned table
         (ops/speck_virtual.build_vtab) instead of [C, 8] element gathers;
       * anchor string ranks skip the leaf levels (~3/4 of nn) and are
@@ -463,8 +462,7 @@ def lis_segments_device(
     #   * virtual forest: dense per-depth/per-level computation
     #     (speck_virtual.dense_anchor_ranks) — parent->child propagation
     #     is a suffix slice + repeat, ranking is per-level sorts summing
-    #     to nn; no nn-scale gathers (73M elem/s — they dominated the
-    #     256^3 walk at ~0.5 s);
+    #     to nn; no nn-scale gathers (they dominated the 256^3 walk);
     #   * table-backed trees (non-pow2 remainder chunks): the original
     #     pointer-doubling (J = J[J]) + suffix-array doubling ladder.
     if getattr(li, "uniform_children", False):
@@ -644,7 +642,7 @@ def lis_segments_device(
     # carrying sort puts items in walk order; forward-fill expansion and a
     # stable pass sort then reproduce the per-pass sequences.  This
     # replaces the old entries ++ decisions ++ signs triple (2x the rows)
-    # plus 8 post-sort gathers at ~0.5 GB/s each.
+    # plus 8 post-sort gathers.
     #
     # Payload bits: 0 is_ent | 1-6 lo | 7-12 s | 13 sign | 14 sig_now |
     # 15 has_sign | 16 dec_emitted | 17 ok.

@@ -162,7 +162,7 @@ class VirtualLisIndex:
         # dz dy dx, x fastest — children()'s slot order), then one node_s
         # section per depth, each 8-aligned so every child octet is ONE
         # table row — the [C, 8] element gathers of the walk become row
-        # gathers (ROADMAP r4 #1).
+        # gathers.
         A8 = np.zeros(D + 2, dtype=np.int64)
         off = self.n
         for d in range(D + 1):
@@ -448,8 +448,7 @@ def _repeat8(x: jnp.ndarray) -> jnp.ndarray:
     """Each element 8x, flat (parent slice -> child-aligned slice).
 
     broadcast_to + reshape, NOT jnp.repeat: repeat lowers through a
-    gather (~73M elem/s on this chip) while the broadcast form is a pure
-    relayout pass."""
+    gather while the broadcast form is a pure relayout pass."""
     n = x.shape[0]
     return jnp.broadcast_to(x[:, None], (n, 8)).reshape(8 * n)
 
@@ -462,8 +461,7 @@ def dense_anchor_ranks(
 
     Replaces the walk's two suffix-doubling loops
     (ops/speck_lis_jax.py: J = J[J] and the R_rank two-key-sort ladder),
-    whose nn-scale gathers/scatters cost ~500 ms at 256^3 (gathers run at
-    ~73M elem/s on this chip; examples/prim_bench2.py).  Here every
+    whose nn-scale gathers/scatters dominated the 256^3 walk.  Here every
     parent->child propagation is a suffix-slice + repeat (pure reshape
     traffic), and the string ranking runs as per-LEVEL sorts whose sizes
     sum to nn:
@@ -583,7 +581,7 @@ def dense_anchor_ranks(
             ]
         )
         rank_s = jnp.cumsum(diff)
-        # inverse permutation by a second sort (scatters are ~10x slower)
+        # inverse permutation by a second sort instead of a scatter
         _, rank = jax.lax.sort((idx_s, rank_s), num_keys=1, is_stable=False)
         off = 0
         for d, a, b in sp:
@@ -640,8 +638,7 @@ def _morton_flatten(box: jnp.ndarray, d: int) -> jnp.ndarray:
     LSB-first rounds with the already-interleaved digits riding as a
     GROWING trailing payload axis: every transpose after the first moves
     large contiguous blocks (the round-4 MSB-first form shrank the minor
-    dims to 1 and paid pathological relayouts, ~20 ms of the 256^3
-    schedule)."""
+    dims to 1 and paid pathological relayouts)."""
     L = box.shape[0]
     out = box.reshape(L, L, L, 1)
     P = 1
@@ -666,8 +663,7 @@ def pixel_schedule_virtual(mags: jnp.ndarray, vf: VirtualLisIndex, num_bp):
     a morton-ALIGNED subcube (origins are 0 or the root side), hence a
     CONTIGUOUS slice [k*8^d, (k+1)*8^d) of its grid's morton array, k the
     root's octant.  This replaces the per-(run, depth) flatten fragments
-    that measured ~25 ms of the 256^3 entropy stage with ~2 ms of
-    reductions + slices."""
+    with reductions + slices."""
     from .speck_jax import msbp1_device
 
     N = vf.dims[0]
@@ -678,7 +674,7 @@ def pixel_schedule_virtual(mags: jnp.ndarray, vf: VirtualLisIndex, num_bp):
     # pyramid root (nodes never live below grid K-1 — side-2 nodes are
     # its cells).  STAGED single-axis reductions: the one-shot
     # [h,2,h,2,h,2].max(1,3,5) form pays a pathological small-minor
-    # relayout (~11 ms at 256^3)
+    # relayout
     h = N // 2
     pmax = box_reduce_max(vol)
 

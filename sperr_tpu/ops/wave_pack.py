@@ -68,7 +68,7 @@ def _emit_words(masks_fn, P: int):
     masks: ``masks_fn(base)`` returns (mask_v, mask_b) u32[M] for the pass
     window [base, base+32) — bit (p - base) of cell i's mask is the cell's
     (valid, bit) value at pass p.  One 32x32 bit transpose per window
-    replaces the [P, M] u8 cell matrices + MXU packs of the round-4 form:
+    replaces the [P, M] u8 cell matrices + matmul packs of the round-4 form:
     the construction cost is O(M) elementwise + ~10 relayout passes,
     independent of P."""
     vws, bws = [], []

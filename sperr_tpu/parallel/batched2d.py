@@ -1,8 +1,8 @@
-"""TPU-batched 2D pipeline: many 2D fields as one device program.
+"""Device-batched 2D pipeline: many 2D fields as one device program.
 
 The reference's 2D path (SPECK2D_FLT via sperr2d / sperr_comp_2d,
 utilities/sperr2d.cpp:245-290) is strictly single-image, single-thread.
-The TPU-native form batches B equal-shaped 2D fields (time steps, ensemble
+The device form batches B equal-shaped 2D fields (time steps, ensemble
 members, z-slices) on a leading axis: condition -> 2D DWT -> q -> midtread
 quantize [-> PWE dual residual scan] runs as ONE jitted program, shardable
 over a `jax.sharding.Mesh` 'slices' axis.  Entropy:
@@ -237,7 +237,7 @@ class TpuCompressor2D:
 
     `dims`: (nx, ny).  `compress(field)` handles one field;
     `compress_batch(fields)` runs B fields as one jitted program (the
-    TPU-native widening of the reference's single-image 2D path)."""
+    device widening of the reference's single-image 2D path)."""
 
     def __init__(
         self,

@@ -6,7 +6,7 @@ runs the full per-chunk pipeline.  Execution model:
   * host path (this module): a thread pool over chunks — the native C++
     SPECK engine releases the GIL, so chunks scale across host cores, which
     mirrors the reference's OpenMP loop.
-  * TPU path (parallel/batched.py): equal-shaped chunks are stacked on a
+  * device path (parallel/batched.py): equal-shaped chunks are stacked on a
     leading axis, the dense stages (DWT + quantization + outlier detect) run
     as one batched jit over a device mesh, and only the entropy stage comes
     back to the host.

@@ -1,14 +1,14 @@
 """SPECK entropy-stage execution engines.
 
-The dense stages (wavelets, quantization) run on TPU; the bit-serial SPECK
-entropy stage runs on the host.  Two interchangeable engines produce
+The dense stages (wavelets, quantization) run on the device; the bit-serial
+SPECK entropy stage runs on the host.  Interchangeable engines produce
 byte-identical streams:
 
   * NumpyEngine  — pure NumPy/Python reference engine (ground truth, slow)
   * NativeEngine — C++ engine (runtime/native), multithreaded across chunks
 
-`default_engine()` prefers the native engine when its shared library is
-available, else falls back to NumPy.
+`default_engine()` is the native engine; its shared library is built on
+first use, and a build failure raises rather than degrading to NumPy.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from ..codec import speck_int_np as sp
 class WaveEngine:
     """Wavefront engine (codec/speck_wave.py): vectorized per-bitplane passes
     for all of 1D/2D/3D.  Byte-identical streams; this is the array-oriented
-    re-architecture whose pixel segments map 1:1 onto TPU vector ops."""
+    re-architecture whose pixel segments map 1:1 onto device vector ops."""
 
     name = "wave"
 
@@ -87,12 +87,9 @@ _default: Optional[object] = None
 def default_engine():
     global _default
     if _default is None:
-        try:
-            from .native import NativeEngine
+        from .native import NativeEngine
 
-            _default = NativeEngine()
-        except Exception:
-            _default = NumpyEngine()
+        _default = NativeEngine()
     return _default
 
 

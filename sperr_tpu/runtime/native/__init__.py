@@ -309,7 +309,7 @@ class NativeChunkCodec:
     precision=64 (default): byte-identical streams to the exact host engine
     (and the reference binaries).  precision=32: fast mode — half the memory
     traffic; streams stay format-valid SPERR, quality bounded by f32
-    roundoff (same contract as the TPU engine).
+    roundoff (same contract as the device engine).
     """
 
     def __init__(self, precision: int = 64):

@@ -996,7 +996,7 @@ std::vector<uint8_t> compress_chunk(int ndim, rvec<F>& vals, size_t nx,
 
     // f32 fast mode, PWE: certify the f64-decode bound on f32 hardware by
     // detecting outliers at tol - eta, where eta conservatively bounds the
-    // f32-vs-f64 reconstruction discrepancy (same scheme as the TPU
+    // f32-vs-f64 reconstruction discrepancy (same scheme as the device
     // driver's pwe_strict="device").  When eta > tol/4 the tolerance cannot
     // be certified at this data scale: return the escalation sentinel (an
     // empty stream) and let the entry point redo the chunk in f64.

@@ -2,7 +2,7 @@
 //
 // From-scratch implementation of the SPERR stream format for the sperr_tpu
 // framework's host entropy stage.  The emitted bit sequence is normative
-// (byte-identical to NCAR/SPERR; see /root/reference/src/SPECK_INT.cpp and
+// (byte-identical to NCAR/SPERR; see the reference's src/SPECK_INT.cpp and
 // SPECK{1,2,3}D_INT*.cpp for the behavioral spec, and this repo's
 // sperr_tpu/codec/speck_int_np.py for the validated reference engine).
 //

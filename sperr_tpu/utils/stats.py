@@ -2,7 +2,7 @@
 
 Parity targets: sperr_helper.cpp:429-523 (calc_stats) and :594-643
 (calc_mean_var).  The host versions are plain numpy; the device versions are
-jittable and batched for use inside the TPU pipeline (e.g. on-device PWE
+jittable and batched for use inside the device pipeline (e.g. on-device PWE
 verification without fetching the volume).
 """
 

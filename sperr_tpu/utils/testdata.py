@@ -1,8 +1,8 @@
 """Test-data generation and raw-image conversion utilities.
 
-TPU-native equivalent of the reference's data tooling
-(/root/reference/test_data/generate.cpp — the 1/r "ball" fields — and
-/root/reference/test_data/pgm2float.cpp — PGM grayscale to f32), plus
+Equivalent of the reference's data tooling (test_data/generate.cpp — the
+1/r "ball" fields — and test_data/pgm2float.cpp — PGM grayscale to f32),
+plus
 the synthetic smooth fields the benchmarks run on, so every benchmark
 configuration is reproducible without external blobs.
 
@@ -43,25 +43,40 @@ def ball_field_3d(n: int = 100) -> np.ndarray:
     return out
 
 
-def smooth_field_3d(n: int, seed: int = 7, modes: int = 24,
-                    noise: float = 0.001) -> np.ndarray:
+def smooth_field(dims, seed: int = 7, modes: int = 24,
+                 noise: float = 0.001, rng=None) -> np.ndarray:
     """Superposed random low-frequency separable modes + sub-tolerance
-    noise — the benchmark regime of error-bounded compression (identical
-    to bench.make_volume / device_bench._smooth_field)."""
-    rng = np.random.default_rng(seed)
-    t = np.linspace(0.0, 1.0, n, dtype=np.float32)
-    vol = np.zeros((n, n, n), dtype=np.float32)
-    for _ in range(modes):
+    noise — the benchmark regime of error-bounded compression.
+
+    `dims` is (nx, ny, nz); returns f32 shaped (nz, ny, nx).  The modes sum
+    as one (nz*ny, modes) x (modes, nx) matrix product, so a multi-GB
+    volume takes seconds.  `rng` (optional) continues an existing
+    generator instead of seeding a new one."""
+    nx, ny, nz = (int(d) for d in dims)
+    rng = np.random.default_rng(seed) if rng is None else rng
+    t = np.linspace(0.0, 1.0, max(nx, ny, nz), dtype=np.float32)
+    zy = np.empty((modes, nz, ny), dtype=np.float32)
+    xs = np.empty((modes, nx), dtype=np.float32)
+    for k in range(modes):
         fx, fy, fz = rng.uniform(0.5, 6.0, 3)
         px, py, pz = rng.uniform(0, 2 * np.pi, 3)
         a = np.float32(rng.normal(scale=0.4))
-        gx = np.sin(2 * np.pi * fx * t + px).astype(np.float32)
-        gy = np.sin(2 * np.pi * fy * t + py).astype(np.float32)
-        gz = np.sin(2 * np.pi * fz * t + pz).astype(np.float32)
-        vol += a * (gz[:, None, None] * gy[None, :, None] * gx[None, None, :])
+        xs[k] = np.sin(2 * np.pi * fx * t[:nx] + px)
+        gy = np.sin(2 * np.pi * fy * t[:ny] + py).astype(np.float32)
+        gz = np.sin(2 * np.pi * fz * t[:nz] + pz).astype(np.float32)
+        zy[k] = a * (gz[:, None] * gy[None, :])
+    vol = (zy.reshape(modes, nz * ny).T @ xs).reshape(nz, ny, nx)
     if noise:
-        vol += rng.normal(scale=noise, size=vol.shape).astype(np.float32)
+        vol += rng.standard_normal(vol.shape, dtype=np.float32) * np.float32(
+            noise
+        )
     return vol
+
+
+def smooth_field_3d(n: int, seed: int = 7, modes: int = 24,
+                    noise: float = 0.001) -> np.ndarray:
+    """`smooth_field` on an n^3 cube (identical to bench.make_volume)."""
+    return smooth_field((n, n, n), seed, modes, noise)
 
 
 def pgm_to_float(pgm_path: str) -> np.ndarray:

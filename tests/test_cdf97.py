@@ -51,7 +51,7 @@ class TestJaxEngine:
     """Device-path transform engine.
 
     XLA contracts multiply-adds into FMAs, so the JAX engine agrees with the
-    exact host engine only to ~1 ulp per lifting step (and TPU has no f64 at
+    exact host engine only to ~1 ulp per lifting step (and the device path has no f64 at
     all); the host engine remains the bit-exact parity path.  Here we require
     (a) near-equality with the host engine in f64 on CPU, and (b) exact f32
     roundtrips — the same contract the reference's dwt tests use.

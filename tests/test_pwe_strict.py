@@ -1,4 +1,4 @@
-"""Strict PWE on the TPU (f32 device) path.
+"""Strict PWE on the f32 device path.
 
 With ``pwe_strict=True`` (default) the PWE bound is *dual-certified*: the
 outlier set bounds the error of both the exact f64 reconstruction (ours and

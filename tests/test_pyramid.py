@@ -1,6 +1,6 @@
 """Pyramid-form partition maxima (ops/pyramid.py): parity with the
 child-table reductions.  This is the ROADMAP #1 prototype — every level is a
-regular 2x2x2 max-pool over a power-of-two embedding, the TPU-idiomatic
+regular 2x2x2 max-pool over a power-of-two embedding, the array-idiomatic
 replacement for ragged segment reductions."""
 
 import numpy as np

@@ -108,9 +108,9 @@ def test_pass_segments_counts_are_stream_sized():
 
 
 def test_packbits_device_parity():
-    """MXU-dot packbits == np.packbits(bitorder='little') at assorted
+    """Matmul packbits == np.packbits(bitorder='little') at assorted
     lengths (the (-1, 8) reshape it replaces OOM'd at 256^3: 16x minor-dim
-    tiling inflation; VERDICT r2 #1)."""
+    tiling inflation)."""
     from sperr_tpu.ops.speck_jax import _packbits_device
 
     rng = np.random.default_rng(2)

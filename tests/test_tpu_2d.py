@@ -71,7 +71,7 @@ def test_stream_decodable_by_host_codec():
 @pytest.mark.skipif(oracle.get_lib() is None, reason="oracle unavailable")
 def test_stream_decodable_by_reference():
     """lena512 through the DEVICE 2D path decodes with the reference
-    binary within the PWE bound (VERDICT item 5 done-criterion)."""
+    binary within the PWE bound."""
     f = _lena()
     tol = 1e-2
     comp = TpuCompressor2D((512, 512), entropy="wave")

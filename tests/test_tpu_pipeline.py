@@ -77,7 +77,7 @@ def test_mesh_sharding_byte_invariant(mode, quality, kw):
 
 
 def test_stream_decodable_by_host_engine():
-    """TPU-mode streams are format-valid: the exact host decoder reads them."""
+    """Device-mode streams are format-valid: the exact host decoder reads them."""
     vol = _vol(24, 24, 48)
     stream = batched.TpuCompressor3D((24, 24, 48), (24, 24, 24)).compress(
         vol, "pwe", 5e-4
@@ -91,7 +91,7 @@ def test_stream_decodable_by_host_engine():
 
 @pytest.mark.skipif(oracle.get_lib() is None, reason="oracle unavailable")
 def test_stream_decodable_by_reference():
-    """The reference binary itself decodes TPU-mode streams."""
+    """The reference binary itself decodes device-mode streams."""
     vol = _vol(24, 24, 48)
     stream = batched.TpuCompressor3D((24, 24, 48), (24, 24, 24)).compress(
         vol, "pwe", 5e-4
